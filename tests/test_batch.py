@@ -77,53 +77,34 @@ def test_icp_batch_unrolled_matches_vmapped(rng):
     )
 
 
-def test_icp_batch_unrolled_hier_matches_vmapped(rng):
-    # the production large-pair lowering on TPU: unrolled solo bodies
-    # with the per-pair hierarchical warm-start NN threaded through
-    # (VERDICT r2 #1).  Forced ON here (interpret-mode kernels on CPU),
-    # it must agree with the vmapped dense lowering pair-by-pair —
-    # the hier NN is bit-exact vs the oracle, so trajectories match.
+def test_icp_batch_unrolled_kernel_matches_vmapped(rng, gpu_selection):
+    # both lowerings on the kernel arm (the GPU default; interpret mode
+    # here) agree with each other and with per-pair solo runs
     befores, afters, _ = make_pairs(rng, [300, 450, 200])
     bb, ba = stack_clouds(befores), stack_clouds(afters)
     vmapped = icp_register_batch(bb, ba, max_iterations=12, unroll=False)
-    hier = icp_register_batch(
-        bb, ba, max_iterations=12, unroll=True, use_spatial=True
-    )
-    # vs the vmapped dense lowering: the hier arm reduces in
-    # Morton-sorted row order, so trajectories agree to f32 noise only
+    unrolled = icp_register_batch(bb, ba, max_iterations=12, unroll=True)
     np.testing.assert_allclose(
-        np.asarray(hier.transform.rotation),
+        np.asarray(unrolled.transform.rotation),
         np.asarray(vmapped.transform.rotation),
-        atol=1e-4,
+        atol=1e-6,
     )
-    # vs per-pair SOLO hier runs at the same padded size: identical
-    # computation, so the agreement is tight
     for i, (b, a) in enumerate(zip(befores, afters)):
         solo = icp_register(
             pad_cloud(b, multiple=512), pad_cloud(a, multiple=512),
-            max_iterations=12, use_spatial=True,
+            max_iterations=12,
         )
         np.testing.assert_allclose(
-            np.asarray(hier.transform.rotation[i]),
+            np.asarray(unrolled.transform.rotation[i]),
             np.asarray(solo.transform.rotation),
             atol=1e-6,
         )
         np.testing.assert_allclose(
-            np.asarray(hier.transform.translation[i]),
+            np.asarray(unrolled.transform.translation[i]),
             np.asarray(solo.transform.translation),
             atol=1e-6,
         )
-        assert int(hier.iterations[i]) == int(solo.iterations)
-    # vmap arm runs the candidate kernel too since r3 (custom-vmap
-    # rule -> batch-grid kernels) and must match the unrolled arm
-    vmapped_hier = icp_register_batch(
-        bb, ba, max_iterations=12, unroll=False, use_spatial=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(vmapped_hier.transform.rotation),
-        np.asarray(hier.transform.rotation),
-        atol=1e-6,
-    )
+        assert int(unrolled.iterations[i]) == int(solo.iterations)
 
 
 def test_nicp_batch_recovers(rng):
@@ -310,11 +291,10 @@ def test_register_pairs_cpd_honors_all_config_fields(rng):
         assert int(iters[i]) == int(it1)
 
 
-def test_batch_vmap_hier_equals_solo(rng):
-    """The vmapped lowering with the hierarchical NN (r3: batched via
-    the custom-vmap rule -> batch-grid bound/rescore kernels) must be
-    bit-identical to solo hier runs — including pairs of different
-    live sizes (padding) and the global dense-fallback cond."""
+def test_batch_vmap_kernel_equals_solo(rng, gpu_selection):
+    """The vmapped lowering on the kernel arm (the pallas_call batched by
+    vmap) must be bit-identical to solo runs on the same arm —
+    including pairs of different live sizes (padding)."""
     from tpuslam.core.types import Cloud
 
     sizes = [700, 1024, 512]
@@ -323,7 +303,7 @@ def test_batch_vmap_hier_equals_solo(rng):
     ba = stack_clouds(afters)
     out = icp_register_batch(
         bb, ba, eps=0.0, max_distance_squared=1e18, max_iterations=8,
-        divergence_guard=False, unroll=False, use_spatial=True,
+        divergence_guard=False, unroll=False,
     )
 
     for k in range(len(sizes)):
@@ -331,7 +311,7 @@ def test_batch_vmap_hier_equals_solo(rng):
             Cloud(bb.points[k], bb.count[k]),
             Cloud(ba.points[k], ba.count[k]),
             eps=0.0, max_distance_squared=1e18, max_iterations=8,
-            divergence_guard=False, use_spatial=True,
+            divergence_guard=False,
         )
         np.testing.assert_array_equal(
             np.asarray(out.transform.rotation[k]),

@@ -1,10 +1,10 @@
-"""Batch-capable Pallas kernels (3-D grid) and their custom-vmap
-wiring: per-pair results must be identical to the unbatched kernels /
-jnp oracles — ``jax.vmap`` over pairs must lower to ONE batched kernel,
-not fail or fall back silently."""
+"""The Triton kernels under ``jax.vmap`` (the batched-registration
+path): the pallas_call batches by itself (a leading grid axis), and
+per-pair results must equal the jnp oracles.  Interpret mode on the CPU."""
+
+import functools
 
 import numpy as np
-import pytest
 
 import jax
 import jax.numpy as jnp
@@ -20,16 +20,19 @@ def _pairs(rng, b, n, m, counts):
     return jnp.asarray(srcs), jnp.asarray(tgts), jnp.asarray(counts)
 
 
+def _nn_kernel():
+    from tpuslam.kernels.pallas_nn import nearest_neighbors_pallas
+
+    return functools.partial(nearest_neighbors_pallas, interpret=True)
+
+
 def test_nn_batched_kernel_matches_ref(rng):
-    from tpuslam.kernels.pallas_nn import nearest_neighbors_pallas_batch
     from tpuslam.ops.nn import nearest_neighbors_ref
 
-    b, n, m = 3, 1024, 2048
-    counts = np.asarray([2048, 1500, 700], np.int32)
+    b, n, m = 3, 512, 1024
+    counts = np.asarray([1024, 700, 1], np.int32)
     src, tgt, cnt = _pairs(rng, b, n, m, counts)
-    idx_b, dist_b = nearest_neighbors_pallas_batch(
-        src, tgt, cnt, interpret=True
-    )
+    idx_b, dist_b = jax.vmap(_nn_kernel())(src, tgt, cnt)
     for k in range(b):
         idx_r, dist_r = nearest_neighbors_ref(src[k], tgt[k], cnt[k])
         np.testing.assert_array_equal(
@@ -40,33 +43,31 @@ def test_nn_batched_kernel_matches_ref(rng):
         )
 
 
-def test_nn_custom_vmap_routes_to_batched_kernel(rng):
-    """vmap of the pallas NN front must take the custom-vmap rule (the
-    plain pallas_call has no batching rule, so reaching results at all
-    proves the route) and agree with the vmapped oracle."""
-    from tpuslam.ops.nn import _nn_pallas_auto, nearest_neighbors_ref
+def test_nn_vmap_matches_vmapped_oracle(rng):
+    """The dispatching front under vmap on the kernel arm agrees with
+    the vmapped oracle, bit for bit."""
+    from tpuslam.ops.nn import nearest_neighbors_ref
 
-    b, n, m = 2, 1024, 1024
-    counts = np.asarray([1024, 900], np.int32)
+    b, n, m = 2, 300, 400
+    counts = np.asarray([400, 333], np.int32)
     src, tgt, cnt = _pairs(rng, b, n, m, counts)
-    idx_b, dist_b = jax.vmap(_nn_pallas_auto)(src, tgt, cnt)
+    idx_b, dist_b = jax.vmap(_nn_kernel())(src, tgt, cnt)
     idx_r, dist_r = jax.vmap(nearest_neighbors_ref)(src, tgt, cnt)
     np.testing.assert_array_equal(np.asarray(idx_b), np.asarray(idx_r))
     np.testing.assert_array_equal(np.asarray(dist_b), np.asarray(dist_r))
 
 
-def test_nn_custom_vmap_unbatched_target(rng):
+def test_nn_vmap_unbatched_target(rng):
     """Many sources against ONE shared target cloud (the map-building
-    regime): the rule must broadcast the unbatched operands."""
-    from tpuslam.ops.nn import _nn_pallas_auto, nearest_neighbors_ref
+    regime): vmap broadcasts the unbatched operands."""
+    from tpuslam.ops.nn import nearest_neighbors_ref
 
-    b, n, m = 3, 1024, 1024
+    b, n, m = 3, 256, 512
     src = jnp.asarray((rng.random((b, n, 3)) * 10).astype(np.float32))
     tgt = jnp.asarray((rng.random((m, 3)) * 10).astype(np.float32))
     cnt = jnp.int32(m)
-    idx_b, dist_b = jax.vmap(
-        lambda s: _nn_pallas_auto(s, tgt, cnt)
-    )(src)
+    kern = _nn_kernel()
+    idx_b, dist_b = jax.vmap(lambda s: kern(s, tgt, cnt))(src)
     idx_r, dist_r = jax.vmap(
         lambda s: nearest_neighbors_ref(s, tgt, cnt)
     )(src)
@@ -74,9 +75,28 @@ def test_nn_custom_vmap_unbatched_target(rng):
     np.testing.assert_array_equal(np.asarray(dist_b), np.asarray(dist_r))
 
 
+def _assert_close(out, ref, err_msg=""):
+    np.testing.assert_allclose(
+        np.asarray(out.p1), np.asarray(ref.p1), rtol=2e-5, atol=1e-6,
+        err_msg="p1 " + err_msg,
+    )
+    np.testing.assert_allclose(
+        np.asarray(out.pt1), np.asarray(ref.pt1), rtol=2e-5, atol=1e-6,
+        err_msg="pt1 " + err_msg,
+    )
+    np.testing.assert_allclose(
+        np.asarray(out.px), np.asarray(ref.px), rtol=2e-5, atol=1e-5,
+        err_msg="px " + err_msg,
+    )
+    np.testing.assert_allclose(
+        np.asarray(out.error), np.asarray(ref.error), rtol=1e-5,
+        err_msg="error " + err_msg,
+    )
+
+
 def test_cpd_estep_batched_matches_oracle(rng):
     from tpuslam.algorithms.cpd import cpd_estep
-    from tpuslam.kernels.pallas_cpd import cpd_estep_pallas_batch
+    from tpuslam.kernels.pallas_cpd import cpd_estep_pallas
 
     b, m, n = 2, 256, 384
     moving = (rng.random((b, m, 3)) * 10.0).astype(np.float32)
@@ -87,77 +107,47 @@ def test_cpd_estep_batched_matches_oracle(rng):
     tmask[1, 300:] = 0.0
     sigma2 = np.asarray([4.0, 2.5], np.float32)
     constant = np.asarray([0.7, 1.3], np.float32)
-    trunc = np.asarray([False, False])
+    trunc = np.asarray([False, True])
 
-    out = cpd_estep_pallas_batch(
-        jnp.asarray(moving), jnp.asarray(mmask), jnp.asarray(target),
-        jnp.asarray(tmask), jnp.asarray(sigma2), jnp.asarray(constant),
-        jnp.asarray(trunc), interpret=True,
-    )
+    args = [jnp.asarray(a) for a in
+            (moving, mmask, target, tmask, sigma2, constant, trunc)]
+    out = jax.vmap(
+        functools.partial(cpd_estep_pallas, interpret=True)
+    )(*args)
     for k in range(b):
-        ref = cpd_estep(
-            jnp.asarray(moving[k]), jnp.asarray(mmask[k]),
-            jnp.asarray(target[k]), jnp.asarray(tmask[k]),
-            jnp.asarray(sigma2[k]), jnp.asarray(constant[k]),
-            jnp.asarray(trunc[k]),
-        )
-        np.testing.assert_allclose(
-            np.asarray(out.p1[k]), np.asarray(ref.p1), rtol=2e-5,
-            atol=1e-6, err_msg=f"p1 pair {k}",
-        )
-        np.testing.assert_allclose(
-            np.asarray(out.pt1[k]), np.asarray(ref.pt1), rtol=2e-5,
-            atol=1e-6, err_msg=f"pt1 pair {k}",
-        )
-        np.testing.assert_allclose(
-            np.asarray(out.px[k]), np.asarray(ref.px), rtol=2e-5,
-            atol=1e-5, err_msg=f"px pair {k}",
-        )
-        np.testing.assert_allclose(
-            np.asarray(out.error[k]), np.asarray(ref.error), rtol=1e-4,
-            err_msg=f"error pair {k}",
+        ref = cpd_estep(*[a[k] for a in args])
+        _assert_close(
+            jax.tree.map(lambda x: x[k], out), ref, f"pair {k}"
         )
 
 
-def test_cpd_estep_custom_vmap_route(rng):
-    from tpuslam.algorithms.cpd import _cpd_estep_pallas_auto, cpd_estep
+def test_cpd_estep_vmap_unbatched_target(rng):
+    """Several moving clouds against one shared target and shared
+    scalars: vmap broadcasts the unbatched operands."""
+    from tpuslam.algorithms.cpd import cpd_estep
+    from tpuslam.kernels.pallas_cpd import cpd_estep_pallas
 
     b, m, n = 2, 256, 256
-    moving = jnp.asarray(
-        (rng.random((b, m, 3)) * 10.0).astype(np.float32)
-    )
-    target = jnp.asarray(
-        (rng.random((b, n, 3)) * 10.0).astype(np.float32)
-    )
-    mask = jnp.ones((b, m), jnp.float32)
-    tmask = jnp.ones((b, n), jnp.float32)
-    sigma2 = jnp.asarray([3.0, 5.0], jnp.float32)
-    constant = jnp.asarray([0.9, 0.9], jnp.float32)
+    moving = jnp.asarray((rng.random((b, m, 3)) * 10.0).astype(np.float32))
+    target = jnp.asarray((rng.random((n, 3)) * 10.0).astype(np.float32))
+    mask = jnp.ones((m,), jnp.float32)
+    tmask = jnp.ones((n,), jnp.float32)
+    s2, c = jnp.float32(3.0), jnp.float32(0.9)
+    kern = functools.partial(cpd_estep_pallas, interpret=True)
 
     out = jax.vmap(
-        lambda ty, mm, x, tm, s2, c: _cpd_estep_pallas_auto(
-            ty, mm, x, tm, s2, c, jnp.asarray(False)
-        )
-    )(moving, mask, target, tmask, sigma2, constant)
+        lambda ty: kern(ty, mask, target, tmask, s2, c, jnp.asarray(False))
+    )(moving)
     ref = jax.vmap(
-        lambda ty, mm, x, tm, s2, c: cpd_estep(
-            ty, mm, x, tm, s2, c, jnp.asarray(False)
-        )
-    )(moving, mask, target, tmask, sigma2, constant)
-    np.testing.assert_allclose(
-        np.asarray(out.p1), np.asarray(ref.p1), rtol=2e-5, atol=1e-6
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.px), np.asarray(ref.px), rtol=2e-5, atol=1e-5
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.error), np.asarray(ref.error), rtol=1e-4
-    )
+        lambda ty: cpd_estep(ty, mask, target, tmask, s2, c,
+                             jnp.asarray(False))
+    )(moving)
+    _assert_close(out, ref)
 
 
-def test_batched_icp_on_pallas_route_matches_solo(rng):
-    """End-to-end: icp_register_batch with the auto (custom-vmap) route
-    forced through the pallas arm must equal solo registrations."""
+def test_batched_icp_on_pallas_route_matches_solo(rng, interpret_kernels):
+    """End-to-end: a vmapped icp_register forced onto the kernel arm must
+    equal solo registrations on the same arm."""
     from tests.conftest import random_rigid
     from tpuslam.algorithms.batch import stack_clouds
     from tpuslam.algorithms.icp import icp_register
@@ -175,9 +165,7 @@ def test_batched_icp_on_pallas_route_matches_solo(rng):
     afters = stack_clouds([p[1] for p in pairs])
 
     def one_batched(b, a):
-        return icp_register(
-            b, a, max_iterations=20, use_pallas=True, use_spatial=False
-        )
+        return icp_register(b, a, max_iterations=20, use_pallas=True)
     res = jax.vmap(one_batched)(befores, afters)
 
     for k, (before, after) in enumerate(pairs):
@@ -185,7 +173,7 @@ def test_batched_icp_on_pallas_route_matches_solo(rng):
         solo = icp_register(
             pad_cloud(before, multiple=npad),
             pad_cloud(after, multiple=npad),
-            max_iterations=20, use_pallas=True, use_spatial=False,
+            max_iterations=20, use_pallas=True,
         )
         np.testing.assert_allclose(
             np.asarray(res.transform.rotation[k]),

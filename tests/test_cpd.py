@@ -261,33 +261,10 @@ def test_centroid_init_noop_when_centroids_match(rng):
     assert int(res_a.iterations) == int(res_b.iterations)
 
 
-def test_cpd_chunk_size_fgt_budget():
-    """Per-phase dispatch sizing: the device FGT is O(N+M) at a
-    measured ~0.4 us/point, so FGT dispatches are sized at ~6 s of
-    device time (~19 iterations at mustang scale), while exact-kernel
-    dispatches keep the O(N*M) pairs budget (1 iteration there) — a
-    single size either starves the fast phase on dispatch latency or
-    lets a Hybrid slow-phase dispatch overrun the device-time bound
-    (ADVICE r4)."""
-    from tpuslam.algorithms.registry import cpd_chunk_size
-
-    n = 376_401
-    exact = cpd_chunk_size(n, n, 15, "tpu")
-    fgt = cpd_chunk_size(n, n, 15, "tpu", fgt_fast_phase=True)
-    slow = cpd_chunk_size(n, n, 15, "tpu", truncated_slow=True)
-    assert exact == 1
-    assert fgt == 19  # 6 s / (752802 points * 0.4 us/point)
-    assert slow == 8  # 1.2e12 pairs / 376401^2 (candidate-kernel rate)
-    # env override still wins; CPU still never chunks
-    assert cpd_chunk_size(n, n, 15, "tpu", "3", fgt_fast_phase=True) == 3
-    assert cpd_chunk_size(n, n, 15, "cpu", fgt_fast_phase=True) == 0
-
-
-def test_chunked_presorted_matches_unchunked(rng):
-    """With the pallas path on, the chunked driver Morton-sorts ONCE
-    and dispatches chunks with assume_sorted=True (a TPU argsort at
-    mustang scale is not cheap); the trajectory must still be
-    bit-identical to the single-dispatch run, which sorts internally."""
+def test_chunked_presorted_matches_unchunked(rng, interpret_kernels):
+    """On the kernel arm (the GPU default; Pallas interpret mode here)
+    the chunked driver's trajectory is bit-identical to the
+    single-dispatch run."""
     from tpuslam.algorithms.cpd import cpd_register_chunked
 
     before = (rng.random((300, 3)) * 6.0 - 3.0).astype(np.float32)
@@ -574,19 +551,3 @@ def test_hybrid_fast_threshold_matches_loop_init(rng):
     np.testing.assert_allclose(float(got_c), float(want_c), rtol=1e-4)
 
 
-def test_super_factor_regimes():
-    """Slot super-factor: 1 through mustang scale, 8 at 1.3M (where a
-    per-block table cannot fit the SMEM budget)."""
-    from tpuslam.kernels.pallas_cpd_cand import _super_factor
-
-    assert _super_factor(368, 368) == 1     # 376k
-    assert _super_factor(1272, 1272) == 8   # 1.3M
-    assert _super_factor(2, 2) == 1
-
-
-def test_checked_slow_gate_default():
-    """TPUSLAM_CPD_CHECKED_MAX is read once at import; the recorded
-    default gate is 768k padded rows."""
-    import tpuslam.algorithms.cpd as cpd_mod
-
-    assert cpd_mod._CHECKED_SLOW_MAX == 768_000

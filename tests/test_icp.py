@@ -217,10 +217,9 @@ def test_chunked_divergence_guard(rng):
     )
 
 
-def test_chunked_matches_unchunked_spatial(rng):
-    # the production auto-chunk regime is TPU + hierarchical NN; cover
-    # the arm-switching trajectory (cold dense -> warm rescore, warm
-    # state carried across chunk boundaries) in Pallas interpret mode
+def test_chunked_matches_unchunked_kernel_arm(rng, interpret_kernels):
+    # chunked dispatch on the kernel arm (the GPU default; Pallas
+    # interpret mode here): identical trajectory to one whole dispatch
     from tpuslam.algorithms.icp import icp_register_chunked
 
     cloud = make_cloud(rng, 300)
@@ -228,7 +227,7 @@ def test_chunked_matches_unchunked_spatial(rng):
     after = cloud @ r_true.T + t_true
     kw = dict(
         eps=1e-7, max_distance_squared=1e4, max_iterations=12,
-        use_spatial=True,
+        use_pallas=True,
     )
     whole = register(cloud, after, **kw)
     parts = icp_register_chunked(
@@ -267,51 +266,15 @@ def test_non_finite_error_reverts_to_last_accepted(rng):
     assert int(res.iterations) == 0
 
 
-def test_resolve_use_spatial_contracts():
-    """Auto-dispatch honors explicit requests and the hier path's f32
-    index range (r2 review findings)."""
-    from tpuslam.algorithms.icp import resolve_use_spatial
+@pytest.mark.parametrize("env,want", [
+    ("7", 7), ("0", 0), ("-3", 0), ("junk", 0), (None, 0),
+])
+def test_icp_chunk_size_gate(env, want):
+    """Chunking happens only on request: an explicit TPUSLAM_*_CHUNK
+    value; unset or malformed means one whole-loop dispatch."""
+    from tpuslam.algorithms.registry import chunk_size
 
-    # explicit choice always wins
-    assert resolve_use_spatial(True, False, 10**9, "cpu") is True
-    assert resolve_use_spatial(False, None, 1000, "tpu") is False
-    # TPU default: on for normal sizes
-    assert resolve_use_spatial(None, None, 100_000, "tpu") is True
-    # use_pallas=False is a request for the jnp reference NN
-    assert resolve_use_spatial(None, False, 100_000, "tpu") is False
-    # beyond the f32-exact index range: fall back to the dense kernel
-    # instead of tripping prepare_hier_target's assert
-    assert resolve_use_spatial(None, None, 2**24, "tpu") is False
-    assert resolve_use_spatial(None, None, 2**24 - 257, "tpu") is True
-    # CPU default stays dense
-    assert resolve_use_spatial(None, None, 100_000, "cpu") is False
-
-
-def test_icp_chunk_size_gate():
-    """The chunk gate bounds dispatch duration; unbounded runs are
-    always chunked on TPU (r2 review: est_iters=50 let a slow-converging
-    max_iterations=-1 run dispatch one unbounded program)."""
-    from tpuslam.algorithms.registry import icp_chunk_size
-
-    # explicit env override wins everywhere
-    assert icp_chunk_size(10**6, 50, "tpu", "7") == 7
-    assert icp_chunk_size(10**6, 50, "tpu", "0") == 0
-    # a malformed override falls back to the AUTO gate (fail safe): a
-    # typo must not silently disable chunking and re-create the
-    # multi-minute-dispatch crash mode the gate exists to prevent
-    assert icp_chunk_size(10**6, 50, "tpu", "junk") == 5
-    assert icp_chunk_size(100_000, 50, "tpu", "junk") == 0
-    # CPU never chunks
-    assert icp_chunk_size(10**7, -1, "cpu") == 0
-    # small bounded runs dispatch whole
-    assert icp_chunk_size(100_000, 50, "tpu") == 0
-    # big bounded runs chunk to ~512k x 10 point-iterations
-    assert icp_chunk_size(1_000_000, 50, "tpu") == 5
-    # work-based: moderate size x many iterations also chunks
-    assert icp_chunk_size(480_000, 200, "tpu") == 10
-    # unbounded runs ALWAYS chunk on TPU, regardless of size
-    assert icp_chunk_size(2_000, -1, "tpu") == 50
-    assert icp_chunk_size(1_000_000, -1, "tpu") == 5
+    assert chunk_size(env) == want
 
 
 def _anisotropic_pair(rng, angle, trans, n=2000, keep=1500):

@@ -77,11 +77,6 @@ def test_no_match_contract_unified(rng):
     ICP loop gathers with it (padding weight masks the pair later)."""
     from tpuslam.kernels.pallas_nn import nearest_neighbors_pallas
     from tpuslam.ops.nn import BIG
-    from tpuslam.ops.nn_hier import (
-        hier_state_init,
-        nearest_neighbors_hier,
-        prepare_hier_target,
-    )
 
     src = jnp.asarray(make_cloud(rng, 256))
     tgt = jnp.asarray(make_cloud(rng, 512))
@@ -92,14 +87,5 @@ def test_no_match_contract_unified(rng):
     assert (np.asarray(dist) == float(BIG)).all()
 
     idx, dist = nearest_neighbors_pallas(src, tgt, count, interpret=True)
-    assert (np.asarray(idx) == 0).all()
-    assert (np.asarray(dist) == float(BIG)).all()
-
-    mask = jnp.zeros((512,), jnp.float32)
-    target = prepare_hier_target(tgt, mask, count)
-    idx, dist, _ = nearest_neighbors_hier(
-        src, jnp.ones((256,), jnp.float32), target,
-        hier_state_init(256), interpret=True,
-    )
     assert (np.asarray(idx) == 0).all()
     assert (np.asarray(dist) == float(BIG)).all()

@@ -1,4 +1,5 @@
-"""Pallas CPD E-step vs the jnp oracle (interpret mode on CPU)."""
+"""Triton-route Pallas CPD E-step vs the jnp oracle (interpret mode on
+the CPU; ``tests/test_chip.py`` checks the compiled kernel on the GPU)."""
 
 import numpy as np
 
@@ -49,8 +50,8 @@ def test_matches_jnp_estep(rng, nm, truncate):
 
 
 def test_internal_padding_multi_tile(rng):
-    # lane-aligned but not tile-aligned shapes: internal padding to 2048
-    # with a mostly-padded second tile (see pallas_nn counterpart)
+    # shapes that are not block multiples once the counts cut them: the
+    # kernel's internal padding must carry no statistics
     n_moving, n_target = 1152, 1280
     before = (rng.random((n_moving, 3)) * 4.0).astype(np.float32)
     after = (rng.random((n_target, 3)) * 4.0).astype(np.float32)
@@ -76,191 +77,10 @@ def test_internal_padding_multi_tile(rng):
     )
 
 
-def test_cpd_estep_cand_bitexact_vs_dense(rng):
-    """The candidate (tile-skipping) E-step must match the dense
-    two-phase kernel BITWISE in every regime: skipped block pairs
-    (truncation active) contribute exact f32 zeros, adding +0.0 in the
-    same block order preserves every partial sum, and without
-    truncation the wrapper routes to the dense kernel outright."""
-    import jax.numpy as jnp
-
-    from tpuslam.kernels.pallas_cpd import cpd_estep_pallas
-    from tpuslam.kernels.pallas_cpd_cand import cpd_estep_cand
-    from tpuslam.ops.spatial import morton_permutation
-
-    m0, n0 = 2500, 3000
-    big_m, big_n = 3072, 3072
-    mov = np.zeros((big_m, 3), np.float32)
-    mov[:m0] = (rng.random((m0, 3)) * 10).astype(np.float32)
-    tgt = np.zeros((big_n, 3), np.float32)
-    tgt[:n0] = (rng.random((n0, 3)) * 10).astype(np.float32)
-    mm = (np.arange(big_m) < m0).astype(np.float32)
-    tm = (np.arange(big_n) < n0).astype(np.float32)
-    pm = np.asarray(morton_permutation(jnp.asarray(mov), jnp.asarray(mm)))
-    pt = np.asarray(morton_permutation(jnp.asarray(tgt), jnp.asarray(tm)))
-    mov, mm = mov[pm], mm[pm]
-    tgt, tm = tgt[pt], tm[pt]
-
-    for s2, trunc in [
-        (4.0, False),    # wide mixture: admission ~full -> dense arm
-        (0.05, True),    # Hybrid truncation window
-        (0.002, True),   # tight truncation: heavy skipping
-        (0.002, False),  # exact mode: full admission -> dense arm
-    ]:
-        a = cpd_estep_pallas(
-            jnp.asarray(mov), jnp.asarray(mm), jnp.asarray(tgt),
-            jnp.asarray(tm), jnp.float32(s2), jnp.float32(0.7),
-            jnp.asarray(trunc), interpret=True,
-        )
-        b = cpd_estep_cand(
-            jnp.asarray(mov), jnp.asarray(mm), jnp.asarray(tgt),
-            jnp.asarray(tm), jnp.float32(s2), jnp.float32(0.7),
-            jnp.asarray(trunc), interpret=True,
-        )
-        for f in ("p1", "pt1", "px", "error"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(a, f)), np.asarray(getattr(b, f)),
-                err_msg=f"{f} s2={s2} trunc={trunc}",
-            )
-
-
-def test_cpd_estep_cand_separated_clusters(rng):
-    """Forced-skip geometry: two clusters 100 units apart with a tight
-    sigma^2 and truncation active — cross-cluster blocks are all
-    skipped, results still match the dense kernel bitwise."""
-    import jax.numpy as jnp
-
-    from tpuslam.kernels.pallas_cpd import cpd_estep_pallas
-    from tpuslam.kernels.pallas_cpd_cand import cpd_estep_cand
-    from tpuslam.ops.spatial import morton_permutation
-
-    half = 1024
-    a_cluster = (rng.random((half, 3)) * 5).astype(np.float32)
-    b_cluster = (rng.random((half, 3)) * 5 + 100.0).astype(np.float32)
-    mov = np.concatenate([a_cluster, b_cluster])
-    tgt = np.concatenate(
-        [a_cluster + 0.01, b_cluster - 0.01]
-    ).astype(np.float32)
-    mm = np.ones((2 * half,), np.float32)
-    tm = np.ones((2 * half,), np.float32)
-    pm = np.asarray(morton_permutation(jnp.asarray(mov), jnp.asarray(mm)))
-    pt = np.asarray(morton_permutation(jnp.asarray(tgt), jnp.asarray(tm)))
-    mov, tgt = mov[pm], tgt[pt]
-
-    args = (
-        jnp.asarray(mov), jnp.asarray(mm), jnp.asarray(tgt),
-        jnp.asarray(tm), jnp.float32(0.01), jnp.float32(0.3),
-        jnp.asarray(True),
-    )
-    dense = cpd_estep_pallas(*args, interpret=True)
-    cand = cpd_estep_cand(*args, interpret=True)
-    for f in ("p1", "pt1", "px", "error"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(dense, f)), np.asarray(getattr(cand, f)),
-            err_msg=f,
-        )
-    # NOTE: no oracle comparison here — at sigma^2 this extreme the
-    # near-underflow exponents make p1 ill-conditioned and the DENSE
-    # kernel itself differs from the jnp oracle by ~0.14 (same on the
-    # fixture pre-round-3); dense-vs-oracle equivalence at sane sigma^2
-    # is covered by the tests above, and dense==cand bitwise is the
-    # candidate path's whole contract.
-
-
-def test_cpd_estep_cand_fat_blocks_bitexact(rng, monkeypatch):
-    """Blocks whose candidate sets overflow the table (the
-    octant-crossing Morton runs) are served by the gathered dense
-    subset passes — still bitwise equal to the dense kernel.  Fixture:
-    8 well-separated clusters (one compact block each, counts=1) plus
-    one block scrambled ACROSS the clusters (counts=8), with the slot
-    granule patched to 2 so the 5/8 width budget (6) actually sits
-    between the two counts at this toy scale."""
-    import jax.numpy as jnp
-
-    import tpuslam.kernels.pallas_cpd_cand as cand_mod
-    from tpuslam.kernels.pallas_cpd import cpd_estep_pallas
-
-    monkeypatch.setattr(cand_mod, "SLOTS", 2)
-    cand_mod.cpd_estep_cand.clear_cache()
-
-    blocks = []
-    for k in range(8):
-        center = np.array(
-            [100.0 * (k % 4), 100.0 * (k // 4), 0.0], np.float32
-        )
-        blocks.append(
-            (rng.random((1024, 3)) * 3).astype(np.float32) + center
-        )
-    mov = np.concatenate(blocks)
-    tgt = np.concatenate([b + 0.01 for b in blocks]).astype(np.float32)
-    # scramble moving block 2 and target block 5 across all clusters
-    mov[2 * 1024:3 * 1024] = mov[rng.permutation(8192)[:1024]]
-    tgt[5 * 1024:6 * 1024] = tgt[rng.permutation(8192)[:1024]]
-    ones = np.ones((8192,), np.float32)
-
-    args = (
-        jnp.asarray(mov), jnp.asarray(ones), jnp.asarray(tgt),
-        jnp.asarray(ones), jnp.float32(0.05), jnp.float32(0.4),
-        jnp.asarray(True),
-    )
-    dense = cpd_estep_pallas(*args, interpret=True)
-    cand = cand_mod.cpd_estep_cand(*args, interpret=True)
-    for f in ("p1", "pt1", "px", "error"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(dense, f)), np.asarray(getattr(cand, f)),
-            err_msg=f,
-        )
-    cand_mod.cpd_estep_cand.clear_cache()
-
-
-def test_cand_checked_matches_plain(rng):
-    """checked=True returns the SAME statistics bits as the plain
-    wrapper's candidate branch (no lax.cond emitted), plus an overflow
-    flag: False under truncation at a size where the table fits, True
-    with truncation off (full admission)."""
-    import jax.numpy as jnp
-
-    from tpuslam.core.types import pad_cloud
-    from tpuslam.kernels.pallas_cpd_cand import cpd_estep_cand
-    from tpuslam.algorithms.cpd import sigma_squared_init, uniform_constant
-    from tpuslam.ops.spatial import morton_permutation
-
-    pts = (rng.random((4200, 3)) * 8.0).astype(np.float32)
-    c = pad_cloud(pts)
-    mask = (jnp.arange(c.points.shape[0]) < c.count).astype(jnp.float32)
-    perm = morton_permutation(c.points, mask)
-    mv, mk = c.points[perm], mask[perm]
-    s2 = sigma_squared_init(mv, mk, mv, mk) * 0.002  # tight -> skipping
-    const = uniform_constant(s2, 0.1, c.count, c.count)
-
-    plain = cpd_estep_cand(mv, mk, mv, mk, s2, const, jnp.asarray(True),
-                           interpret=True)
-    checked, ovf = cpd_estep_cand(mv, mk, mv, mk, s2, const,
-                                  jnp.asarray(True), interpret=True,
-                                  checked=True)
-    assert not bool(ovf)
-    np.testing.assert_array_equal(np.asarray(plain.p1),
-                                  np.asarray(checked.p1))
-    np.testing.assert_array_equal(np.asarray(plain.px),
-                                  np.asarray(checked.px))
-    np.testing.assert_array_equal(np.asarray(plain.error),
-                                  np.asarray(checked.error))
-
-    # at this tiny block count (5) even full admission fits the table
-    # (width 8), so trunc-off must NOT flag overflow — and the stats
-    # must still equal the dense kernel's
-    wide, ovf_wide = cpd_estep_cand(mv, mk, mv, mk, s2, const,
-                                    jnp.asarray(False), interpret=True,
-                                    checked=True)
-    assert not bool(ovf_wide)
-    assert np.isfinite(float(wide.error))
-
-
-def test_hybrid_checked_slow_trajectory(rng):
-    """The checked slow-phase loop (pallas path) lands in the same
-    optimum as the jnp reference arm for a full Hybrid+FGT
-    registration (bit-parity is with the dense PALLAS kernel; the jnp
-    arm differs only by summation order)."""
+def test_hybrid_kernel_arm_trajectory(rng, interpret_kernels):
+    """A full Hybrid+FGT registration on the kernel arm lands in the same
+    optimum as the jnp reference arm (the two differ only by summation
+    order)."""
     from tests.conftest import random_rigid
     from tpuslam.algorithms.cpd import cpd_register
     from tpuslam.core.types import pad_cloud
@@ -282,39 +102,68 @@ def test_hybrid_checked_slow_trajectory(rng):
         np.asarray(ref.transform.translation), atol=2e-3)
 
 
-@pytest.mark.parametrize("force_super", [(2, 2), (4, 2), (2, 4)])
-def test_cand_super_slots_bit_identical(rng, force_super):
-    """Super-slot candidate tables (slots gathering s consecutive
-    blocks — the 1M+ SMEM regime) must stay BIT-identical to the dense
-    kernel: per-block sequential accumulation inside a slot preserves
-    the dense reduction order, and over-admitted sibling blocks
-    contribute exact +0.0."""
-    import jax.numpy as jnp
+def _estep_case(rng, m, n, count_m, count_n, s2_factor, trunc):
+    mov = (rng.random((m, 3)) * 4.0 - 2.0).astype(np.float32)
+    tgt = (rng.random((n, 3)) * 4.0 - 2.0).astype(np.float32)
+    mm = (np.arange(m) < count_m).astype(np.float32)
+    tm = (np.arange(n) < count_n).astype(np.float32)
+    s2 = sigma_squared_init(
+        jnp.asarray(mov), jnp.asarray(mm), jnp.asarray(tgt), jnp.asarray(tm)
+    )
+    s2 = jnp.where(jnp.isfinite(s2), s2, 1.0) * s2_factor
+    c = uniform_constant(
+        s2, jnp.float32(0.3), jnp.float32(max(count_m, 1)),
+        jnp.float32(max(count_n, 1)),
+    )
+    return (jnp.asarray(mov), jnp.asarray(mm), jnp.asarray(tgt),
+            jnp.asarray(tm), s2, c, jnp.asarray(trunc))
 
-    from tpuslam.algorithms.cpd import sigma_squared_init, uniform_constant
-    from tpuslam.core.types import pad_cloud
-    from tpuslam.kernels.pallas_cpd import cpd_estep_pallas
-    from tpuslam.kernels.pallas_cpd_cand import cpd_estep_cand
-    from tpuslam.ops.spatial import morton_permutation
 
-    n = 4 * 1024 * max(force_super)  # several super-slots worth
-    pts = (rng.random((n, 3)) * 8.0).astype(np.float32)
-    c = pad_cloud(pts)
-    mask = (jnp.arange(c.points.shape[0]) < c.count).astype(jnp.float32)
-    perm = morton_permutation(c.points, mask)
-    mv, mk = c.points[perm], mask[perm]
-    s2 = sigma_squared_init(mv, mk, mv, mk) * 0.002
-    const = uniform_constant(s2, 0.1, c.count, c.count)
+def _assert_stats_close(got, want, rtol=1e-4):
+    # rtol against each statistic's largest magnitude: entries far below
+    # it (Gaussian tails) carry no relative precision in either form
+    for f in ("p1", "pt1", "px"):
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        scale = max(float(np.max(np.abs(b))), 1e-30)
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=rtol * scale,
+                                   err_msg=f)
+    assert float(got.error) == pytest.approx(float(want.error), rel=1e-5)
 
-    dense = cpd_estep_pallas(mv, mk, mv, mk, s2, const,
-                             jnp.asarray(True), interpret=True)
-    got, ovf = cpd_estep_cand(mv, mk, mv, mk, s2, const,
-                              jnp.asarray(True), interpret=True,
-                              checked=True, force_super=force_super)
-    assert not bool(ovf)
-    np.testing.assert_array_equal(np.asarray(dense.p1), np.asarray(got.p1))
-    np.testing.assert_array_equal(np.asarray(dense.pt1),
-                                  np.asarray(got.pt1))
-    np.testing.assert_array_equal(np.asarray(dense.px), np.asarray(got.px))
-    np.testing.assert_array_equal(np.asarray(dense.error),
-                                  np.asarray(got.error))
+
+@pytest.mark.parametrize("count_m,count_n", [
+    (0, 200), (1, 200), (200, 1), (137, 200), (200, 200),
+])
+def test_estep_counts_and_padding(rng, count_m, count_n):
+    """Empty, single-row and partial masks: masked rows carry nothing,
+    and the kernel agrees with the oracle on the rest."""
+    args = _estep_case(rng, 200, 200, count_m, count_n, 1.0, False)
+    got = cpd_estep_pallas(*args, interpret=True)
+    want = cpd_estep(*args)
+    assert got.p1.shape == (200,) and got.px.shape == (200, 3)
+    assert got.pt1.shape == (200,)
+    assert np.all(np.asarray(got.p1)[count_m:] == 0)
+    assert np.all(np.asarray(got.pt1)[count_n:] == 0)
+    assert np.all(np.isfinite(np.asarray(got.px)))
+    _assert_stats_close(got, want)
+
+
+@pytest.mark.parametrize("s2_factor,trunc", [
+    (1.0, False), (1.0, True), (0.01, True), (0.002, True), (0.002, False),
+])
+def test_estep_tight_sigma_and_truncation(rng, s2_factor, trunc):
+    """Tight sigma^2 (the Hybrid slow phase) with truncation on and off:
+    both forms are per-coordinate, so they agree to f32 rounding."""
+    args = _estep_case(rng, 300, 260, 300, 260, s2_factor, trunc)
+    _assert_stats_close(cpd_estep_pallas(*args, interpret=True),
+                        cpd_estep(*args))
+
+
+def test_estep_truncation_drops_terms(rng):
+    """Truncation can only remove mass: with it on, every denominator
+    term that survives is unchanged and p1 never grows."""
+    args = list(_estep_case(rng, 256, 256, 256, 256, 0.01, False))
+    off = cpd_estep_pallas(*args, interpret=True)
+    args[-1] = jnp.asarray(True)
+    on = cpd_estep_pallas(*args, interpret=True)
+    assert np.all(np.asarray(on.pt1) <= np.asarray(off.pt1) + 1e-6)
+    assert float(on.error) >= float(off.error) - 1e-3

@@ -1,5 +1,6 @@
-"""Pallas NN kernel vs the jnp reference oracle (interpret mode on CPU;
-the same kernel compiles for TPU — SURVEY §7 step 4)."""
+"""Triton-route Pallas NN kernel vs the jnp reference oracle (interpret
+mode on the CPU; the same kernel compiles for the GPU, where
+``tests/test_chip.py`` checks it at full size)."""
 
 import numpy as np
 import pytest
@@ -60,9 +61,9 @@ def test_all_targets_invalid(rng):
 
 
 def test_internal_padding_multi_tile(rng):
-    # 1152 rows: pads internally to 2048 -> two 1024-tiles where the
-    # second is mostly internal padding; the count mask must keep padded
-    # rows from ever winning across the tile boundary
+    # 1152 rows is not a multiple of the kernel's blocks once count cuts
+    # it to 1100: the tail block is partly internal padding, and the
+    # count mask must keep padded rows from ever winning
     n, m, count = 1152, 1152, 1100
     src = (rng.random((n, 3)) * 10).astype(np.float32)
     tgt_full = (rng.random((m, 3)) * 10).astype(np.float32)

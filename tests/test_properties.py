@@ -192,8 +192,8 @@ def test_serve_never_dies(request_dict):
 @given(points_strategy(24), st.integers(0, 2**31 - 1))
 def test_transform_points_matches_f64_oracle(points, seed):
     """transform_points (the per-coordinate FMA form that stays exact
-    f32 on the TPU VPU — the [N,3]@[3,3] matmul form falls onto the
-    bf16 MXU there) must agree with a float64 matmul oracle to f32
+    f32 — the [N,3]@[3,3] matmul form may run in TF32 on the GPU) must
+    agree with a float64 matmul oracle to f32
     roundoff for ANY rotation/translation/scale, in both the plain and
     the explicitly-batched-rotation broadcast layouts."""
     from tpuslam.data.synthesis import (

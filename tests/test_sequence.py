@@ -91,7 +91,7 @@ def test_seeded_accuracy_matches_unseeded(rng):
     accuracy.  Before the patience fix the reference divergence guard
     fired on near-optimum error fluctuation after ~2 iterations and
     returned seed quality (trajectory drift 6x worse at 20x100k,
-    tools/probe_seq_seed.py)."""
+    measured on an earlier build)."""
     scans, poses = _make_trajectory(rng, n_scans=6)
     seeded = register_sequence(scans, max_iterations=60,
                                max_distance_squared=1e6)
@@ -151,14 +151,13 @@ def test_scan_lowering_chunked_dispatch_identical(rng):
     np.testing.assert_array_equal(whole.iterations, parts.iterations)
 
 
-def test_scan_lowering_spatial_arm(rng):
-    """The scan lowering's hierarchical-NN arm (host Morton presort +
-    presorted target prep + in-scan warm-start hier NN, interpret mode
-    off-TPU) recovers the same trajectory as the dense arm."""
+def test_scan_lowering_kernel_arm(rng, gpu_selection):
+    """The scan lowering on the kernel arm (the GPU default; interpret
+    mode here) recovers the trajectory."""
     scans, poses = _make_trajectory(rng, n_scans=3, n_pts=700,
                                     step_angle=0.05, step_trans=0.3)
     out = register_sequence(scans, max_iterations=40,
-                            max_distance_squared=1e6, use_spatial=True)
+                            max_distance_squared=1e6)
     for k, (true_r, true_t) in enumerate(poses):
         dev, terr = _pose_error(
             out.absolute[k].rotation, out.absolute[k].translation,
@@ -225,16 +224,15 @@ def test_sequence_stream_rejects_oversized_scan(rng):
         stream.push(np.zeros((4096, 3), np.float32))
 
 
-def test_sequence_stream_spatial_arm(rng):
-    """Streaming with the hierarchical-NN arm (interpret mode off-TPU):
-    device artifacts (sorted points + target state) retained across
-    pushes."""
+def test_sequence_stream_kernel_arm(rng, gpu_selection):
+    """Streaming on the kernel arm (the GPU default; interpret mode
+    here): device copies retained across pushes."""
     from tpuslam.algorithms.sequence import SequenceStream
 
     scans, poses = _make_trajectory(rng, n_scans=3, n_pts=700,
                                     step_angle=0.05, step_trans=0.3)
     stream = SequenceStream(scans[0], max_iterations=40,
-                            max_distance_squared=1e6, use_spatial=True)
+                            max_distance_squared=1e6)
     for s in scans[1:]:
         stream.push(s)
     dev, terr = _pose_error(

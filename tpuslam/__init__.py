@@ -1,17 +1,18 @@
-"""tpuslam — a TPU-native point-set registration framework.
+"""tpuslam — rigid point-set registration in JAX for NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the CUDA/C++
+A from-scratch JAX/XLA design of the capabilities of the CUDA/C++
 reference ``Sliwson/cuda-slam`` (see SURVEY.md): three rigid registration
 algorithms (ICP, non-iterative CP, Coherent Point Drift) behind one
 registration API, the reference's JSON config contract, cloud synthesis
-pipeline, benchmark harness and CSV output — built TPU-first:
+pipeline, benchmark harness and CSV output:
 
 * one algorithm implementation per method (no CPU/GPU twins) that runs on
-  CPU jax for tests and on TPU for production,
+  the CPU for tests and on the GPU for production,
 * the O(N*M) hot loops (NN correspondence argmin, CPD responsibility
-  accumulation) as blocked MXU-friendly Pallas kernels,
-* multi-chip scaling by sharding the target cloud over a device mesh and
-  reducing argmins / moment sums with XLA collectives.
+  accumulation) as fused Pallas kernels through the Triton route,
+  selected by platform in ``tpuslam.core.device``,
+* multi-card scaling by sharding the target cloud over a device mesh and
+  reducing argmins / moment sums with XLA collectives (NCCL).
 """
 
 __version__ = "0.1.0"

@@ -3,10 +3,10 @@ call.
 
 New scope vs the reference (single-pair binary; SURVEY §7 step 7 /
 BASELINE "multi-pair batched registration"): production registration
-workloads align many scan pairs at once, and on TPU a ``jax.vmap`` over
-the pair axis turns B registrations into one compiled program whose
-per-pair work batches onto the same kernels (the NN distance tiles and
-CPD E-step tiles simply gain a leading batch dimension).
+workloads align many scan pairs at once, and a ``jax.vmap`` over the
+pair axis turns B registrations into one compiled program whose per-pair
+work batches onto the same kernels (the NN and CPD E-step kernels gain a
+leading grid axis).
 
 The underlying while-loops are vmap-safe: their bodies freeze finished
 elements, so each pair's result is identical to a solo run (asserted in
@@ -42,30 +42,19 @@ def stack_clouds(clouds: Sequence[np.ndarray], multiple: int = 128) -> Cloud:
     )
 
 
-# Lowering crossover for icp_register_batch, re-measured on v5e in
-# round 3 (tools/batch_diag.py, 16 pairs x 20 iters, ms: vmap-dense /
-# loop-dense / loop-hier / vmap-hier = 2k: 20/27/32/28, 4k:
-# 36/42/46/54, 8k: 100/96/85/128, 16k: 354/308/184/302): small pairs
-# vmap the while_loop with the DENSE kernel (tiny per-pair kernels
-# batch onto one well-shaped 3-D grid and the hier path's fixed stages
-# dominate); from ~8k per pair the unrolled loop of solo hier bodies
-# wins (each kernel saturates the chip and the vmapped loop pays for
-# batched gathers/selects).  The vmapped-HIER lowering (r3 custom-vmap
-# kernels) is never the fastest at B<=32 but takes over past the
-# unroll cap: at B>32 with large pairs the vmap arm auto-resolves
-# use_spatial by size exactly like solo (vmap-hier beats vmap-dense
-# 1.17x at 16k).  Unrolling also restores per-pair early exit (a
-# vmapped batch steps until the slowest pair converges) but program
-# size grows with B, so the AUTO selection is capped at _UNROLL_MAX_B;
-# an explicit ``unroll=True`` is honored for any B — expect compile
-# time to grow roughly linearly in B beyond the cap.
+# Lowering choice for icp_register_batch: small pairs vmap the
+# while_loop (tiny per-pair kernels batch onto one grid); large pairs
+# unroll solo bodies per pair in one program, which also restores
+# per-pair early exit (a vmapped batch steps until the slowest pair
+# converges).  Program size grows with B, so the AUTO selection is
+# capped at _UNROLL_MAX_B; an explicit ``unroll=True`` is honored for
+# any B.  The break-even pair size was set on an earlier platform and
+# has not been measured on the GPU yet.
 _UNROLL_MAX_B = 32
-_UNROLL_MIN_PAIRWORK = 8192 * 8192  # N*M per pair (measured break-even)
+_UNROLL_MIN_PAIRWORK = 8192 * 8192  # N*M per pair (break-even)
 
 
-@partial(
-    jax.jit, static_argnames=("divergence_guard", "unroll", "use_spatial")
-)
+@partial(jax.jit, static_argnames=("divergence_guard", "unroll"))
 def icp_register_batch(
     befores: Cloud,
     afters: Cloud,
@@ -74,15 +63,11 @@ def icp_register_batch(
     max_iterations: int = 50,
     divergence_guard: bool = True,
     unroll: bool | None = None,
-    use_spatial: bool | None = None,
 ) -> RegistrationResult:
     """``icp_register`` over the leading pair axis — ONE jitted program
-    either way; ``unroll`` (default: auto by the measured crossover
-    above) picks between vmapping the while_loop and unrolling solo
-    bodies per pair.  ``use_spatial`` (default auto, like solo) is
-    honored by BOTH lowerings since round 3: the vmapped one batches
-    the hierarchical NN through its custom-vmap rule
-    (``nearest_neighbors_hier_auto`` -> batch-grid kernels)."""
+    either way; ``unroll`` (default: auto by the crossover above) picks
+    between vmapping the while_loop and unrolling solo bodies per
+    pair."""
     if unroll is None:
         b, n = befores.points.shape[0], befores.points.shape[1]
         m = afters.points.shape[1]
@@ -97,10 +82,6 @@ def icp_register_batch(
                 max_distance_squared=max_distance_squared,
                 max_iterations=max_iterations,
                 use_pallas=None,
-                # None = auto: the hierarchical warm-start NN, exactly
-                # as a solo run (bit-identical results to the dense
-                # kernel, so the two lowerings still agree)
-                use_spatial=use_spatial,
                 divergence_guard=divergence_guard,
             )
             # strip the optional carries (history/nn/em) so both
@@ -114,11 +95,7 @@ def icp_register_batch(
         eps=eps,
         max_distance_squared=max_distance_squared,
         max_iterations=max_iterations,
-        # None = auto: on TPU the custom-vmap rules lower the NN to
-        # batch-grid Pallas kernels — the dense scan AND (new in r3)
-        # the hierarchical warm-start path (nearest_neighbors_hier_auto)
         use_pallas=None,
-        use_spatial=use_spatial,
         divergence_guard=divergence_guard,
     )
     return jax.vmap(fn)(befores, afters)
@@ -142,7 +119,7 @@ def nicp_register_batch(
         approximation_type=approximation_type,
         subcloud_size=subcloud_size,
         seed=seed,
-        use_pallas=None,  # auto: batched Pallas NN on TPU (custom vmap)
+        use_pallas=None,  # auto: the kernel on the GPU, batched by vmap
     )
     return jax.vmap(fn)(befores, afters)
 
@@ -187,7 +164,7 @@ def cpd_register_batch(
         order_of_truncation=order_of_truncation,
         ratio_of_far_field=ratio_of_far_field,
         centroid_init=centroid_init,
-        use_pallas=None,  # auto: batched Pallas E-step on TPU
+        use_pallas=None,  # auto: the kernel on the GPU, batched by vmap
     )
     return jax.vmap(fn)(befores, afters)
 
@@ -221,7 +198,6 @@ def icp_register_prealigned_batch(
         rotation=pre.transform.rotation,
         translation=pre.transform.translation,
         error=jnp.full((b,), 1e5, jnp.float32),  # reporting init
-        nn=None,
         done_before=jnp.zeros((b,), jnp.int32),
         # guard seed = cold start; an absolute threshold would freeze
         # large-unit pairs at the raw NICP seed (see single-pair path)
@@ -235,8 +211,8 @@ def icp_register_prealigned_batch(
         use_pallas=None,
         divergence_guard=divergence_guard,
     )
-    # same measured lowering crossover as icp_register_batch: large
-    # pairs unroll the solo bodies into this one jitted program
+    # same lowering crossover as icp_register_batch: large pairs
+    # unroll the solo bodies into this one jitted program
     if unroll is None:
         n, m = befores.points.shape[1], afters.points.shape[1]
         unroll = b <= _UNROLL_MAX_B and n * m >= _UNROLL_MIN_PAIRWORK
@@ -246,15 +222,12 @@ def icp_register_prealigned_batch(
             r = fn(
                 Cloud(befores.points[p], befores.count[p]),
                 Cloud(afters.points[p], afters.count[p]),
-                # None = auto: per-pair hierarchical NN, like a solo run
-                use_spatial=None,
                 resume=jax.tree.map(lambda x: x[p], resume),
             )
             outs.append(
                 RegistrationResult(r.transform, r.iterations, r.error)
             )
         return jax.tree.map(lambda *xs: jnp.stack(xs), *outs)
-    # vmap arm: hier NN batches through the custom-vmap rule (r3)
     return jax.vmap(
-        lambda bb, aa, rr: fn(bb, aa, use_spatial=None, resume=rr)
+        lambda bb, aa, rr: fn(bb, aa, resume=rr)
     )(befores, afters, resume)

@@ -1,7 +1,7 @@
 """Non-iterative closest point (Oomori-style one-shot SVD registration).
 
 Capability equivalent of the reference's NICP (CPU ``noniterative.cpp``,
-GPU ``nicpcuda.cu``), redesigned for TPU:
+GPU ``nicpcuda.cu``), redesigned as one jitted program:
 
 The reference computes, per repetition, SVDs of the two *randomly permuted*
 centered 3xN cloud matrices and forms ``R = U_after @ U_before.T``
@@ -13,7 +13,7 @@ over (at most) the 4 proper-rotation sign combinations of
 
 Here we enumerate that candidate set *deterministically and exhaustively*:
 two 3x3 eigendecompositions of the masked scatter matrices (the N-point work
-is a single MXU matmul each), then all sign candidates scored in one vmap.
+is a single f32 contraction each), then all sign candidates scored in one vmap.
 This supersedes the reference's K-repetition jitter (``nicp-iterations`` /
 ``nicp-batch-size`` become no-ops, documented divergence): it evaluates the
 complete candidate set the reference samples from, in one shot, with no
@@ -62,8 +62,7 @@ _SIGNS = jnp.array(
 # eigengap below this fraction of the largest eigenvalue counts as
 # degenerate (rotationally near-symmetric cloud): the scatter
 # eigenvectors within the tied subspace are then numerically arbitrary
-# and the 4-candidate sign enumeration is insufficient (VERDICT r2
-# weak #2).  The reference's K random permutations (noniterative.cpp:
+# and the 4-candidate sign enumeration is insufficient.  The reference's K random permutations (noniterative.cpp:
 # 57-200) only re-roll the arbitrary basis — they do not search the
 # in-plane angle either, so it fails these clouds outright.
 DEGENERATE_GAP_THRESHOLD = 0.05
@@ -134,7 +133,7 @@ def principal_axes(
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Left singular basis of the centered 3xN cloud matrix, descending.
 
-    Computed as eigh of the 3x3 scatter ``C = X_c^T X_c`` — one MXU matmul
+    Computed as eigh of the 3x3 scatter ``C = X_c^T X_c`` — one contraction
     over N instead of a tall-matrix SVD (the reference's cloud-size gesvd,
     ``parallelsvdhelper.cu:60-79``).  Returns (U f32[3,3] columns = axes,
     eigenvalues f32[3] descending).
@@ -174,15 +173,17 @@ def _enumerate_candidates(
         for ax in degenerate_axes:
             mats.append(_rot_about_axis(ax, thetas))
     a_stack = jnp.concatenate(mats, axis=0)  # f32[W, 3, 3]
+    hi = jax.lax.Precision.HIGHEST
     rots = jnp.einsum(
-        "rk,sk,wkl,cl->swrc", u_after, _SIGNS, a_stack, u_before
+        "rk,sk,wkl,cl->swrc", u_after, _SIGNS, a_stack, u_before,
+        precision=hi,
     ).reshape(-1, 3, 3)
     det_pair = jnp.linalg.det(u_after) * jnp.linalg.det(u_before)
     dets = jnp.repeat(
         jnp.prod(_SIGNS, axis=1) * det_pair, a_stack.shape[0]
     )
     trans = mu_after[None, :] - jnp.einsum(
-        "src,c->sr", rots, mu_before
+        "src,c->sr", rots, mu_before, precision=hi
     )
     return _Candidates(rotations=rots, translations=trans, proper=dets > 0)
 
@@ -224,7 +225,10 @@ def _exact_errors(
     c = cands.rotations.shape[0]
     k = subcloud.shape[0]
     transformed = (
-        jnp.einsum("crk,nk->cnr", cands.rotations, subcloud)
+        jnp.einsum(
+            "crk,nk->cnr", cands.rotations, subcloud,
+            precision=jax.lax.Precision.HIGHEST,
+        )
         + cands.translations[:, None, :]
     )  # [C, k, 3]
     _, dist = nearest_neighbors(
@@ -289,8 +293,8 @@ def nicp_register(
     # subcloud of before for exact scoring (common.cpp:25-37): random valid
     # rows; if the cloud is smaller than subcloud_size the whole cloud is
     # used and the shortfall is weight-masked out.  The row count is
-    # rounded up to the TPU lane width for the Pallas NN kernel; rows
-    # beyond the requested size carry zero weight, preserving the exact
+    # rounded up to the padding granule (``LANE``); rows beyond the
+    # requested size carry zero weight, preserving the exact
     # subcloud-size semantics.
     k_req = min(subcloud_size, before.padded_size)
     k = min(round_up(k_req, LANE), before.padded_size)
@@ -368,6 +372,8 @@ def nicp_register(
         # to roughly the features' own angular width, so two rounds of
         # 17-sample rescored grids about the winner (spacing /8 per
         # round) resolve the angle to ~0.35 deg per degenerate axis.
+        hi = jax.lax.Precision.HIGHEST
+
         def rodrigues(axis_vec, thetas):
             a = axis_vec / jnp.linalg.norm(axis_vec)
             kmat = jnp.array(
@@ -380,7 +386,7 @@ def nicp_register(
             s = jnp.sin(thetas)[:, None, None]
             eye = jnp.eye(3, dtype=jnp.float32)
             return eye[None] + s * kmat[None] + (1.0 - c) * (
-                kmat @ kmat
+                jnp.matmul(kmat, kmat, precision=hi)
             )[None]
 
         span = 2.0 * jnp.pi / degenerate_angles
@@ -393,10 +399,10 @@ def nicp_register(
                 # eigen-axis: R(d) = R @ Rot(u_b[:, ax], d)
                 rots = jnp.einsum(
                     "rc,kcl->krl", rotation,
-                    rodrigues(u_b[:, ax], deltas),
+                    rodrigues(u_b[:, ax], deltas), precision=hi,
                 )
                 trs = mu_a[None, :] - jnp.einsum(
-                    "krc,c->kr", rots, mu_b
+                    "krc,c->kr", rots, mu_b, precision=hi
                 )
                 grid = _Candidates(
                     rotations=rots,
@@ -425,7 +431,10 @@ def nicp_register(
             from tpuslam.ops.procrustes import weighted_procrustes
 
             r_s, t_s = weighted_procrustes(moved, after.points[idx], w)
-            return (r_s @ rot, r_s @ tr + t_s), None
+            return (
+                jnp.matmul(r_s, rot, precision=hi),
+                jnp.matmul(r_s, tr, precision=hi) + t_s,
+            ), None
 
         (rotation, translation), _ = jax.lax.scan(
             polish_step, (rotation, translation), None, length=3

@@ -89,7 +89,7 @@ class Configuration:
     order_of_truncation: int = 8  # fgt-order-of-truncation
     # extension (not in the reference config contract): tri-state pick
     # of the CPD full/hybrid fast-phase E-step.  None (default) = auto,
-    # the measured size crossover (cpd.CPD_FGT_CROSSOVER: exact blocked
+    # the size crossover (cpd.CPD_FGT_CROSSOVER: exact blocked
     # kernel below it, device FGT at/above it); true/false force one arm
     cpd_use_fgt: Optional[bool] = None
     # extension: start CPD EM from the centroid-difference translation

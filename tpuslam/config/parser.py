@@ -219,7 +219,7 @@ class ConfigParser:
         c.order_of_truncation = int(opt(parsed, "fgt-order-of-truncation", 8))
         # extension key (not in the reference): force the CPD full/
         # hybrid fast-phase arm — true = device FGT, false = exact
-        # blocked kernel; absent = auto (the measured size crossover,
+        # blocked kernel; absent = auto (the size crossover,
         # see tpuslam.algorithms.cpd module doc)
         _fgt = opt(parsed, "cpd-use-fgt", None)
         c.cpd_use_fgt = None if _fgt is None else bool(_fgt)

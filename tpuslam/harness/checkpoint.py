@@ -27,7 +27,6 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from tpuslam.algorithms.icp import ICPResume
-from tpuslam.ops.nn_hier import HierState
 
 _VERSION = 1
 
@@ -50,15 +49,15 @@ def cloud_fingerprint(points, mask) -> List[float]:
     per-axis coordinate sums, the masked sum of squares, and a
     row-order-weighted sum (f32 accumulation — deterministic for
     identical input on the same backend; any perturbation that changes
-    the run, e.g. the harness's 1e-4 warmup jitter, changes it).
+    the run changes it).
 
     Each term closes a degeneracy a plain coordinate sum has: per-axis
     sums don't collapse toward 0 under rotation the way a total sum of
     a centered cloud does; the sum of squares separates clouds whose
     sums coincide; and the order-weighted term separates row
-    PERMUTATIONS of the same cloud — those produce the same transform
-    but different per-row hier-NN warm bounds, which a resume carries
-    (``ICPResume.nn``), so row order is part of the state's identity."""
+    PERMUTATIONS of the same cloud — those change the f32 summation
+    order of every reduction, hence the bits of the trajectory, so row
+    order is part of the state's identity."""
     import jax.numpy as jnp
 
     masked = points * mask[:, None]
@@ -124,8 +123,8 @@ def _load(z, kind: str, expect_meta: Optional[dict]) -> dict:
 def save_icp_checkpoint(
     path: str, resume: ICPResume, meta: Optional[dict] = None
 ) -> None:
-    """Write ``resume`` (transform, guard state, optional hier-NN warm
-    state, iterations done) and ``meta`` to ``path`` as ``.npz``."""
+    """Write ``resume`` (transform, guard state, iterations done) and
+    ``meta`` to ``path`` as ``.npz``."""
     arrays = {
         "rotation": np.asarray(resume.rotation, np.float32),
         "translation": np.asarray(resume.translation, np.float32),
@@ -134,12 +133,6 @@ def save_icp_checkpoint(
     }
     if resume.prev_error is not None:
         arrays["prev_error"] = np.asarray(resume.prev_error, np.float32)
-    if resume.nn is not None:
-        arrays["nn_prev_target"] = np.asarray(
-            resume.nn.prev_target, np.float32
-        )
-        arrays["nn_warm"] = np.asarray(resume.nn.warm, bool)
-        arrays["nn_sparse"] = np.asarray(resume.nn.sparse, bool)
     _save(path, "icp", arrays, meta)
 
 
@@ -151,21 +144,12 @@ def load_icp_checkpoint(
     guard)."""
     with np.load(path) as z:
         meta = _load(z, "icp", expect_meta)
-        nn = None
-        # pre-r4 checkpoints stored (nn_prev_dist, nn_prev_pos); the NN
-        # warm state only affects speed (every arm is exact), so those
-        # load as nn=None and re-warm after one iteration
-        if "nn_prev_target" in z:
-            nn = HierState(
-                prev_target=z["nn_prev_target"],
-                warm=z["nn_warm"],
-                sparse=z["nn_sparse"],
-            )
+        # files from older builds may also hold NN warm-state arrays;
+        # they only ever affected speed, so they are ignored
         resume = ICPResume(
             rotation=z["rotation"],
             translation=z["translation"],
             error=z["error"],
-            nn=nn,
             done_before=int(z["done_before"]),
             prev_error=z["prev_error"] if "prev_error" in z else None,
         )

@@ -49,7 +49,7 @@ TABLE = os.path.join(os.path.dirname(__file__), "data", "noise_suite.jsonl")
 
 # per-tier comparative note on the reference's own behavior, emitted
 # into the tier sidecar so a reader grading a lenient tier sees what the
-# reference did on the same regime (VERDICT r2 weak #6)
+# reference did on the same regime
 REFERENCE_NOTES = {
     "recover": "",
     "align": "reference: partial-overlap pairs align but exact recovery "
@@ -305,7 +305,7 @@ def run_noise_test_set(
                 before, after, config
             )
             # with --warmup the runner calls compute TWICE per config
-            # (untimed perturbed pass first); grade only the timed one
+            # (untimed pass first); grade only the timed one
             _state["calls"] += 1
             if warmup and _state["calls"] % 2 == 1:
                 return rot, tr, iters, err

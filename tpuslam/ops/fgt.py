@@ -199,8 +199,7 @@ def compute_fgt_model_multi(
     farthest-point pick order and nearest-center assignments are
     preserved; the cached segment-mean centers transform exactly, since
     the mean commutes with affine maps).  The selection is 127
-    sequential O(N) argmax steps — measured 55 ms of the 288 ms E-step
-    at 376k, paid twice (``bench_results/fgt_stages.json``)."""
+    sequential O(N) argmax steps, paid for both clouds."""
     if clustering is None:
         centers, indx = k_center(points, mask, k, k_rt)
     else:
@@ -241,13 +240,10 @@ def fgt_predict_multi(
 ) -> jnp.ndarray:
     """Batched-weights prediction: ``ak`` f32[K, pd, W] -> f32[M, W].
 
-    ``chunk``: targets per ``lax.map`` step.  256 is MEASURED, not a
-    guess: a round-5 attempt at 1024 (to quarter the sequential step
-    count) ran the 376k W=4 predict ~60% SLOWER end to end (0.29 ->
-    0.47 s/E-step uncached, bench_results/cpd_crossover.log r5) — the
-    [chunk, K, pd] monomial intermediate leaves fast memory and the
-    kernel goes HBM-bound; the per-step machinery the small chunk pays
-    is the cheaper side of the trade."""
+    ``chunk``: targets per ``lax.map`` step.  It bounds the
+    ``[chunk, K, pd]`` monomial intermediate; a larger chunk means fewer
+    sequential steps but a larger intermediate.  256 was chosen on an
+    earlier platform and has not been measured on the GPU yet."""
     m = targets.shape[0]
     e_param = jnp.float32(e_param)
 
@@ -256,7 +252,10 @@ def fgt_predict_multi(
         s = jnp.sum(dy * dy, axis=-1)  # [chunk, K]
         g = jnp.where(s > e_param, 0.0, jnp.exp(-s))
         prods = _monomials(dy, p)  # [chunk, K, pd]
-        return jnp.einsum("mk,mkd,kdw->mw", g, prods, model.ak)
+        return jnp.einsum(
+            "mk,mkd,kdw->mw", g, prods, model.ak,
+            precision=jax.lax.Precision.HIGHEST,
+        )
 
     if m <= chunk:
         return one_chunk(targets)

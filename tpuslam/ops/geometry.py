@@ -44,12 +44,10 @@ def transform_points(
     """``p -> scale * (R @ p) + t`` (``common.cpp:39-55``).
 
     Exact f32 by construction: a ``[N,3] @ [3,3]`` matmul at default
-    precision takes the TPU's bf16 MXU path (~2^-8 relative coordinate
-    error — ~0.04 units at spread 10), which measurably biased every
-    registration's optimum (~0.01-0.04 translation error per pair,
-    6x trajectory drift in sequence odometry; tools/probe_seq_seed.py
-    --dense).  The per-coordinate FMA form runs exact f32 on the VPU
-    and fuses into the downstream kernels."""
+    precision may take a reduced-precision (TF32) path, whose relative
+    coordinate error biases every registration's optimum.  The
+    per-coordinate FMA form is exact f32 and fuses into the downstream
+    elementwise work."""
     x = points[..., 0]
     y = points[..., 1]
     z = points[..., 2]
@@ -70,10 +68,3 @@ def transform_points(
     return scale * out + translation
 
 
-def squared_distance_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """All-pairs squared distances ``f32[N, M]`` via the MXU-friendly
-    expansion ``|a|^2 + |b|^2 - 2 a.b``."""
-    a2 = jnp.sum(a * a, axis=-1, keepdims=True)  # [N, 1]
-    b2 = jnp.sum(b * b, axis=-1, keepdims=True).T  # [1, M]
-    cross = a @ b.T  # [N, M] — MXU
-    return a2 + b2 - 2.0 * cross

@@ -53,9 +53,8 @@ def weighted_procrustes(
     ac = after - mu_a
     # H = sum_i w_i ac_i bc_i^T  — matches alignedAfter * alignedBefore^T
     # (3xN by Nx3) at common.cpp:530
-    # full f32 precision: the TPU's default bf16 matmul passes are too
-    # coarse for a 3x3 cross-covariance feeding an SVD (observed 2e-3
-    # rotation error at default precision)
+    # full f32 precision: a reduced-precision (TF32) matmul pass is too
+    # coarse for a 3x3 cross-covariance feeding an SVD
     h = jnp.einsum(
         "n,nr,nc->rc", w, ac, bc, precision=jax.lax.Precision.HIGHEST
     )

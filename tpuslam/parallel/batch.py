@@ -50,10 +50,9 @@ def _build(mesh: Mesh, divergence_guard: bool):
                 Cloud(bp, bc), Cloud(ap, ac),
                 eps=eps, max_distance_squared=max_d2,
                 max_iterations=max_iterations,
-                # auto: batched Pallas NN on TPU via the custom-vmap
-                # rule; vmapped jnp tiles on CPU test meshes
+                # auto: the vmapped kernel on the GPU, vmapped jnp
+                # tiles on CPU test meshes
                 use_pallas=None,
-                use_spatial=False,  # sparse kernel is not vmappable
                 divergence_guard=divergence_guard,
             )
             return (

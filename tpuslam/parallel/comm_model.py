@@ -1,26 +1,11 @@
-"""Per-iteration communication model of the sharded algorithms — the
-pod-scaling claim as a calculation, not a hope (VERDICT r2 missing #1).
+"""Per-iteration communication model of the sharded algorithms.
 
-Single-chip hardware is all this checkout has, so the >= 75% two-host
-scaling-efficiency target (BASELINE.json) cannot be measured; what CAN
-be done is (a) an exact byte model of every collective each algorithm
-issues per iteration, (b) a verifier that counts those collectives in
-the actual traced programs on the virtual mesh (``tests/test_parallel``
-compares model vs jaxpr, so the model can never silently drift from the
-code), and (c) an efficiency prediction from the model plus v5e link
-rates and the MEASURED single-chip per-iteration compute times.
-
-Link-rate assumptions (stated, not hidden):
-
-* v5e ICI: ~4.5e10 B/s one-way per link (the public scaling-book
-  figure); a v5e pod slice of up to 256 chips is ONE ICI domain — hosts
-  within a slice connect via ICI, DCN enters only across slices — so
-  the 1 host -> 2 hosts claim rides ICI.
-* All-reduce over one mesh axis (psum/pmin lower to it): bidirectional
-  ring, wire time ~= 2 * bytes * (d-1)/d / link_bw, plus a per-collective
-  launch latency (~5 us).
-* Cross-slice DCN fallback: ~2.5e10 B/s per host; the predictor accepts
-  the bandwidth as a parameter so both regimes are one formula.
+(a) An exact byte model of every collective each sharded algorithm
+issues per iteration, and (b) a verifier that counts those collectives in
+the actual traced programs on a mesh (``tests/test_parallel`` compares
+model vs jaxpr, so the model can never silently drift from the code).
+Neither describes a machine: link rates and times come from measurement
+on the cards, not from here.
 
 The models below count PAYLOAD bytes of each collective's output —
 exactly what the jaxpr verifier measures.
@@ -29,13 +14,6 @@ exactly what the jaxpr verifier measures.
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
-
-# v5e one-way ICI bandwidth per link (public scaling-book figure)
-V5E_ICI_BYTES_PER_S = 4.5e10
-# conservative cross-slice DCN per host
-DCN_BYTES_PER_S = 2.5e10
-# per-collective launch/latency overhead
-COLLECTIVE_LATENCY_S = 5e-6
 
 
 def icp_comm_bytes(n_padded: int) -> Dict[str, int]:
@@ -134,73 +112,3 @@ def collective_bytes(jaxpr) -> List[Tuple[str, tuple, int]]:
 
 def total_collective_bytes(jaxpr) -> int:
     return sum(b for _, _, b in collective_bytes(jaxpr))
-
-
-# ---------------------------------------------------------------------------
-# efficiency prediction
-# ---------------------------------------------------------------------------
-
-def allreduce_seconds(
-    payload_bytes: float,
-    n_devices: int,
-    link_bytes_per_s: float = V5E_ICI_BYTES_PER_S,
-) -> float:
-    """Bidirectional-ring all-reduce wire time over one mesh axis."""
-    if n_devices <= 1:
-        return 0.0
-    return 2.0 * payload_bytes * (n_devices - 1) / (
-        n_devices * link_bytes_per_s
-    )
-
-
-def predicted_efficiency(
-    comm_bytes_per_iter: float,
-    n_collectives_per_iter: int,
-    single_chip_iter_seconds: float,
-    n_devices: int,
-    link_bytes_per_s: float = V5E_ICI_BYTES_PER_S,
-) -> float:
-    """Parallel efficiency at ``n_devices`` vs the single chip:
-    ``T1 / (d * Td)`` with ``Td = T1/d + T_comm``.  Compute is assumed
-    embarrassingly shardable (it is: the target axis carries all O(N M)
-    work; the 3x3 algebra is replicated and negligible)."""
-    t_comp = single_chip_iter_seconds / n_devices
-    t_comm = (
-        allreduce_seconds(comm_bytes_per_iter, n_devices, link_bytes_per_s)
-        + n_collectives_per_iter * COLLECTIVE_LATENCY_S
-    )
-    return t_comp / (t_comp + t_comm)
-
-
-def two_host_efficiency_report(
-    n_points: int = 1_310_720,
-    single_chip_iter_seconds: float = 0.25,
-    chips_per_host: int = 4,
-) -> Dict[str, float]:
-    """The BASELINE claim, computed: ICP at the largest benchmark rung,
-    1 host (4 chips) vs 2 hosts (8 chips) — both inside one v5e ICI
-    domain.  ``single_chip_iter_seconds`` defaults to 0.25 s — a
-    DELIBERATE understatement of the measured single-chip time at the
-    1.3M rung this report models (0.2814 s/iter, bench_report.json
-    round 3; the 1M+ ladder median is 0.2348).  Smaller compute per
-    chip LOWERS predicted efficiency, so 0.25 is the conservative
-    floor, and it still predicts 0.99."""
-    model = icp_comm_bytes(n_points)
-    d1, d2 = chips_per_host, 2 * chips_per_host
-    e1 = predicted_efficiency(
-        model["total"], model["n_collectives"],
-        single_chip_iter_seconds, d1,
-    )
-    e2 = predicted_efficiency(
-        model["total"], model["n_collectives"],
-        single_chip_iter_seconds, d2,
-    )
-    t1 = single_chip_iter_seconds / d1 / e1
-    t2 = single_chip_iter_seconds / d2 / e2
-    return {
-        "comm_bytes_per_iter": model["total"],
-        "iter_s_1host": t1,
-        "iter_s_2host": t2,
-        "one_to_two_host_scaling_efficiency": t1 / (2.0 * t2),
-        "efficiency_vs_single_chip_8dev": e2,
-    }

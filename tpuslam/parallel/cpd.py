@@ -6,7 +6,7 @@ over the REPLICATED moving cloud, so the E-step is embarrassingly parallel
 over target shards — each device runs the blocked exact E-step on its
 shard and only the moment accumulators cross chips:
 
-* ``p1`` (f32[M]), ``px`` (f32[M,3]), log-likelihood — ``psum`` over ICI;
+* ``p1`` (f32[M]), ``px`` (f32[M,3]), log-likelihood — ``psum`` through NCCL;
 * ``pt1`` stays sharded; the M-step needs it only through the reductions
   ``A^T pt1`` (f32[3]) and ``sum pt1 |a|^2`` (f32[]), which are psum'd as
   scalars/3-vectors ("ring attention for GMM responsibilities" without the
@@ -75,7 +75,8 @@ def _build(mesh: Mesh, const_scale: bool,
         sa = jax.lax.psum(
             jnp.sum(tgt_shard * mask_a[:, None], axis=0), axis
         )
-        sigma2_0 = (n * sb2 + m * sa2 - 2.0 * jnp.dot(sb, sa)) / (
+        hi = jax.lax.Precision.HIGHEST
+        sigma2_0 = (n * sb2 + m * sa2 - 2.0 * jnp.dot(sb, sa, precision=hi)) / (
             3.0 * m * n
         )
         c_init = uniform_constant(sigma2_0, weight, m, n)
@@ -95,7 +96,8 @@ def _build(mesh: Mesh, const_scale: bool,
                 axis,
             )
             s_pt1_a = jax.lax.psum(
-                jnp.einsum("n,nr->r", local.pt1, tgt_shard), axis
+                jnp.einsum("n,nr->r", local.pt1, tgt_shard, precision=hi),
+                axis,
             )
             return p1, px, err, t_pt1_a2, s_pt1_a
 
@@ -166,7 +168,7 @@ def _build(mesh: Mesh, const_scale: bool,
                 jnp.sum(pt1 * jnp.sum(tgt_shard * tgt_shard, -1)), axis
             )
             s_pt1_a = jax.lax.psum(
-                jnp.einsum("n,nr->r", pt1, tgt_shard), axis
+                jnp.einsum("n,nr->r", pt1, tgt_shard, precision=hi), axis
             )
             return p1, px, err, t_pt1_a2, s_pt1_a
 
@@ -227,19 +229,18 @@ def _build(mesh: Mesh, const_scale: bool,
             # replicated M-step from psum'd moments
             np_ = jnp.sum(p1)
             inv_np = 1.0 / np_
-            mu_b = inv_np * jnp.einsum("m,mr->r", p1, moving)
+            mu_b = inv_np * jnp.einsum("m,mr->r", p1, moving, precision=hi)
             mu_a = inv_np * s_pt1_a
             a_mat = (
                 jnp.einsum(
-                    "mr,mc->rc", px, moving,
-                    precision=jax.lax.Precision.HIGHEST,
+                    "mr,mc->rc", px, moving, precision=hi,
                 )
                 - np_ * jnp.outer(mu_a, mu_b)
             )
-            sigma_sub = t_pt1_a2 - np_ * jnp.dot(mu_a, mu_a)
+            sigma_sub = t_pt1_a2 - np_ * jnp.dot(mu_a, mu_a, precision=hi)
             scale_den = (
                 jnp.sum(p1 * jnp.sum(moving * moving, -1))
-                - np_ * jnp.dot(mu_b, mu_b)
+                - np_ * jnp.dot(mu_b, mu_b, precision=hi)
             )
             mres = mstep_from_moments(
                 np_, mu_b, mu_a, a_mat, sigma_sub, scale_den,
@@ -306,7 +307,7 @@ def cpd_register_sharded(
 
     ``use_fgt`` follows the single-device tri-state
     (``tpuslam.algorithms.cpd.resolve_use_fgt``): ``None`` applies the
-    measured size crossover on the GLOBAL problem size; ``True`` forces
+    size crossover on the GLOBAL problem size; ``True`` forces
     the Fast Gauss Transform approximation in the Full/Hybrid fast
     phases, sharded: the target-side model is a per-shard clustering
     all-gathered into a union model (one collective round per E-step),

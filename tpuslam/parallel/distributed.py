@@ -1,16 +1,15 @@
-"""Multi-host initialization (SURVEY §5.8 — new scope vs the single-GPU
-reference, which has no communication backend at all).
+"""Multi-process initialization (SURVEY §5.8 — new scope vs the
+single-GPU reference, which has no communication backend at all).
 
-On a multi-host TPU slice, call ``initialize()`` once per process before
-any jax usage; the mesh from ``tpuslam.parallel.mesh.make_mesh`` then
-spans every chip in the slice and the sharded registration entry points
-(``icp_register_sharded`` / ``cpd_register_sharded`` /
-``nicp_register_sharded``) issue their ``psum``/``pmin`` collectives over
-ICI within hosts and DCN between them — XLA handles the hierarchy; no
-NCCL/MPI analog exists or is needed.
+One process drives all the GPUs of one host, and ``make_mesh`` over
+``jax.devices()`` needs no initialization: the sharded registration entry
+points (``icp_register_sharded`` / ``cpd_register_sharded`` /
+``nicp_register_sharded``) issue their ``psum``/``pmin`` collectives,
+which XLA hands to NCCL over NVLink.
 
-Single-host (or single-chip) runs need no initialization; ``make_mesh``
-over ``jax.devices()`` just works.
+Only a run with several processes (one per host, or one per card) calls
+``initialize()`` once per process before any other jax use, with an
+explicit coordinator: nothing in the environment describes the cluster.
 """
 
 from __future__ import annotations
@@ -23,8 +22,9 @@ def initialize(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """``jax.distributed.initialize`` passthrough; arguments default to
-    TPU-pod auto-detection (the usual case — no args on Cloud TPU)."""
+    """``jax.distributed.initialize`` passthrough.  Give all three
+    arguments (for example ``"localhost:<port>"``, the process count and
+    this process's index); there is no cluster auto-detection here."""
     import jax
 
     jax.distributed.initialize(

@@ -3,8 +3,8 @@
 Same algorithm as ``tpuslam.algorithms.icp`` (homogeneous composition,
 divergence guard, weight-masked Procrustes) with the NN hot loop sharded:
 the target cloud lives split across devices, each iteration does one
-per-shard argmin + two ``pmin`` / one ``psum`` collective, and everything
-else (3x3 SVD, state update) runs replicated.  Per SURVEY §3.2's lesson,
+per-shard argmin + two ``pmin`` / one ``psum`` collective (NCCL), and
+everything else (3x3 SVD, state update) runs replicated.  Per SURVEY §3.2's lesson,
 nothing crosses the host boundary — the loop, collectives included,
 compiles into one XLA program.
 """
@@ -26,65 +26,15 @@ from tpuslam.ops.geometry import transform_points
 
 
 @lru_cache(maxsize=16)
-def _build(mesh: Mesh, divergence_guard: bool, use_spatial: bool,
-           interpret: bool, tile_params=None):
+def _build(mesh: Mesh, divergence_guard: bool, use_pallas=None):
     def loop(before_pts, src_mask, tgt_shard, tgt_count,
              eps, max_d2, max_iterations,
              init_r, init_t, init_err, init_prev):
-        if use_spatial:
-            # per-shard hierarchical NN (tpuslam.ops.nn_hier): each
-            # device Morton-sorts and bounds ITS target slice, threads
-            # its own warm state (the local NN of the previous iteration
-            # is still in the local slice, so the warm upper bound holds
-            # per shard), and the global winner is resolved with the
-            # same lex-min collectives as the dense arm.  A shard whose
-            # local minimum exceeds its own bound set can only report a
-            # too-large distance for points it cannot win anyway — the
-            # shard holding the true global NN always has it admissible.
-            from tpuslam.ops.nn_hier import (
-                hier_state_init,
-                nearest_neighbors_hier,
-                prepare_hier_target,
+        def run_nn(transformed):
+            _, dist, matched = sharded_nn_combine(
+                transformed, tgt_shard, tgt_count, use_pallas=use_pallas
             )
-            from tpuslam.parallel.nn import lexmin_combine
-
-            shard_size = tgt_shard.shape[0]
-            offset = (
-                jax.lax.axis_index(POINTS_AXIS) * shard_size
-            ).astype(jnp.int32)
-            count_shard = jnp.clip(tgt_count - offset, 0, shard_size)
-            mask_shard = (
-                jnp.arange(shard_size, dtype=jnp.int32) < count_shard
-            ).astype(jnp.float32)
-            # size-scaled tile parameters for the PER-SHARD slice
-            # (tpuslam.ops.nn_hier.auto_tile_params, resolved by the
-            # caller from the padded shard size)
-            g, gsrc, l_budget = tile_params
-            htarget = prepare_hier_target(
-                tgt_shard, mask_shard, count_shard, g=g
-            )
-            nn_init = hier_state_init(before_pts.shape[0])
-
-            def run_nn(transformed, carry):
-                il, dl, carry = nearest_neighbors_hier(
-                    transformed, src_mask, htarget, carry,
-                    l_budget=l_budget, g=g, gsrc=gsrc,
-                    interpret=interpret,
-                )
-                # lex-min tie-break and winner gather are the shared
-                # cross-shard contract (tpuslam.parallel.nn)
-                _, dmin, matched = lexmin_combine(
-                    dl, il, tgt_shard, offset, POINTS_AXIS
-                )
-                return dmin, matched, carry
-        else:
-            nn_init = None
-
-            def run_nn(transformed, carry):
-                _, dist, matched = sharded_nn_combine(
-                    transformed, tgt_shard, tgt_count
-                )
-                return dist, matched, carry
+            return dist, matched
 
         def cond(s: ICPState):
             return jnp.logical_and(
@@ -98,7 +48,7 @@ def _build(mesh: Mesh, divergence_guard: bool, use_spatial: bool,
             transformed = transform_points(
                 before_pts, s.rotation, s.translation
             )
-            dist, matched, nn_state = run_nn(transformed, s.nn)
+            dist, matched = run_nn(transformed)
             w = jnp.logical_and(dist < max_d2, src_mask > 0).astype(
                 jnp.float32
             )
@@ -146,20 +96,16 @@ def _build(mesh: Mesh, divergence_guard: bool, use_spatial: bool,
                 prev_error=jnp.where(keep, err, s.prev_error),
                 iterations=jnp.where(done, s.iterations, s.iterations + 1),
                 done=done,
-                nn=nn_state,
             )
 
         # cold start passes (eye, zero, 1e5, FLT_MAX); a chunked resume
         # passes the accepted boundary state — same values the loop
         # would hold had it continued, so chunked dispatch follows the
-        # unchunked trajectory step for step (the hier warm state is NOT
-        # carried across dispatches: it only affects speed, never the
-        # exact NN result)
+        # unchunked trajectory step for step
         init = ICPState(
             rotation=init_r, translation=init_t,
             error=init_err, prev_error=init_prev,
             iterations=jnp.int32(0), done=jnp.asarray(False),
-            nn=nn_init,
         )
         final = jax.lax.while_loop(cond, body, init)
         return final.rotation, final.translation, final.iterations, final.error
@@ -183,44 +129,15 @@ def icp_register_sharded(
     max_distance_squared: float = 1000.0,
     max_iterations: int = 50,
     divergence_guard: bool = True,
-    use_spatial: bool = False,
     resume=None,
+    use_pallas=None,
 ) -> RegistrationResult:
     """``before`` replicated, ``after`` sharded along the points axis
-    (see ``tpuslam.parallel.mesh.shard_cloud``).
-
-    ``use_spatial`` runs the warm-start hierarchical NN per shard (the
-    single-device default on TPU — ``tpuslam.ops.nn_hier``); exactness
-    of the global argmin is preserved because every shard's local result
-    is exact for any point it could win."""
-    import jax as _jax
-
+    (see ``tpuslam.parallel.mesh.shard_cloud``).  ``use_pallas`` picks
+    the per-shard NN arm (None: the kernel on the GPU)."""
     b_points, b_mask = before.points, before.mask()
     a_points, a_count = after.points, after.count
-    tile_params = None
-    if use_spatial:
-        from tpuslam.core.types import round_up
-        from tpuslam.ops.nn_hier import auto_tile_params
-        from tpuslam.ops.spatial import morton_permutation
-
-        n_dev = mesh.devices.size
-        n0, m0 = b_points.shape[0], a_points.shape[0]
-        # tile parameters follow the PER-SHARD slice size (each device
-        # bounds and rescores only its own target slice)
-        g, gsrc, l_budget = auto_tile_params(-(-m0 // n_dev))
-        tile_params = (g, gsrc, l_budget)
-        n_pad = round_up(n0, gsrc)
-        m_pad = round_up(m0, g * n_dev)
-        b_points = jnp.pad(b_points, ((0, n_pad - n0), (0, 0)))
-        b_mask = jnp.pad(b_mask, (0, n_pad - n0))
-        a_points = jnp.pad(a_points, ((0, m_pad - m0), (0, 0)))
-        # Morton-sort the replicated source for candidate locality
-        perm_s = morton_permutation(b_points, b_mask)
-        b_points = b_points[perm_s]
-        b_mask = b_mask[perm_s]
-
-    interpret = _jax.default_backend() != "tpu"
-    fn = _build(mesh, divergence_guard, use_spatial, interpret, tile_params)
+    fn = _build(mesh, divergence_guard, use_pallas)
     if resume is None:
         init_r = jnp.eye(3, dtype=jnp.float32)
         init_t = jnp.zeros((3,), jnp.float32)
@@ -266,7 +183,6 @@ def icp_register_sharded_prealigned(
     max_distance_squared: float = 1000.0,
     max_iterations: int = 50,
     divergence_guard: bool = True,
-    use_spatial: bool = False,
     subcloud_size: int = 1000,
     seed: int = 0,
 ) -> RegistrationResult:
@@ -289,21 +205,23 @@ def icp_register_sharded_prealigned(
     t0 = pre.transform.translation
     moved = Cloud(
         # padded rows must stay zeros (Cloud contract) — mask the shift
-        points=(before.points @ r0.T + t0) * before.mask()[:, None],
+        points=transform_points(before.points, r0, t0)
+        * before.mask()[:, None],
         count=before.count,
     )
     res = icp_register_sharded(
         moved, after, mesh, eps=eps,
         max_distance_squared=max_distance_squared,
         max_iterations=max_iterations,
-        divergence_guard=divergence_guard, use_spatial=use_spatial,
+        divergence_guard=divergence_guard,
     )
     r1 = res.transform.rotation
     t1 = res.transform.translation
+    hi = jax.lax.Precision.HIGHEST
     return RegistrationResult(
         transform=RigidTransform(
-            rotation=r1 @ r0,
-            translation=r1 @ t0 + t1,
+            rotation=jnp.matmul(r1, r0, precision=hi),
+            translation=jnp.matmul(r1, t0, precision=hi) + t1,
             scale=jnp.float32(1.0),
         ),
         iterations=res.iterations,
@@ -322,12 +240,9 @@ def icp_register_sharded_chunked(
     **kwargs,
 ) -> RegistrationResult:
     """``icp_register_sharded`` dispatched ``chunk`` iterations at a
-    time — the multi-chip analog of ``icp_register_chunked`` (bounding
-    single-dispatch device time on long registrations; the production
-    long-registration path over the mesh).  Identical trajectory to
-    the single-dispatch sharded run: the boundary state is the exact
-    while_loop carry, and the hier warm state (speed-only) re-warms
-    after one in-dispatch iteration."""
+    time — the multi-chip analog of ``icp_register_chunked``.  Identical
+    trajectory to the single-dispatch sharded run: the boundary state is
+    the exact while_loop carry."""
     from tpuslam.algorithms.icp import ICPResume
 
     if chunk < 1:

@@ -1,11 +1,12 @@
 """Device mesh construction and cloud sharding.
 
 New scope vs the reference (single-GPU, no communication backend —
-SURVEY §2.6.5): scale registration across TPU chips by sharding the
-TARGET cloud along a ``"points"`` mesh axis while the moving cloud and the
-3x3 transform state stay replicated.  All cross-chip traffic is XLA
-collectives (``psum``/``pmin``) over ICI issued from ``shard_map`` bodies;
-there is no NCCL/MPI analog to port.
+SURVEY §2.6.5): scale registration across the GPUs of one host by
+sharding the TARGET cloud along a 1-D ``"points"`` mesh axis while the
+moving cloud and the 3x3 transform state stay replicated.  All cross-card
+traffic is XLA collectives (``psum``/``pmin``) issued from ``shard_map``
+bodies, which XLA hands to NCCL; NVLink joins every card to every other
+at the same rate, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@
 The multi-chip form of the ICP hot loop (SURVEY §5.8): the target cloud is
 sharded along the ``points`` axis; every device computes (min, argmin) of
 its shard for ALL source points, then the global winner is resolved with
-two ``pmin`` collectives over ICI — one on distances, one lexicographic on
+two ``pmin`` collectives — one on distances, one lexicographic on
 global indices so the reference's FIRST-index-wins tie-break
 (``common.cpp:416`` strict ``<``) is preserved across shards.  A third
 ``psum`` replicates the winning target coordinates so the 3x3 Procrustes
@@ -12,7 +12,7 @@ that follows runs replicated with no gather from remote shards.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -30,8 +30,8 @@ def lexmin_combine(
     offset: jnp.ndarray,
     axis: str = POINTS_AXIS,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """The cross-shard combine — THE cross-path contract, shared by every
-    sharded NN arm (dense and hierarchical).  Runs INSIDE a shard_map body.
+    """The cross-shard combine — THE cross-path contract of the sharded
+    NN.  Runs INSIDE a shard_map body.
 
     ``dl``/``il``: this shard's exact local (sq_distance, local index) per
     source row, with no-match rows as (BIG, 0) per the NN contract so
@@ -60,23 +60,23 @@ def sharded_nn_combine(
     tgt_shard: jnp.ndarray,
     tgt_count: jnp.ndarray,
     axis: str = POINTS_AXIS,
+    use_pallas: Optional[bool] = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Runs INSIDE a shard_map body.
 
     ``src``: replicated f32[N,3]; ``tgt_shard``: this device's f32[M/d,3]
     block; ``tgt_count``: replicated global valid count.  Returns replicated
     (global_index i32[N], sq_distance f32[N], matched_points f32[N,3]).
+    The per-shard search is the single-device one
+    (``tpuslam.ops.nearest_neighbors``: the kernel on the GPU).
     """
-    from tpuslam.ops.nn import chunked_nn
+    from tpuslam.ops.nn import nearest_neighbors
 
     shard_size = tgt_shard.shape[0]
-    offset = jax.lax.axis_index(axis) * shard_size
-    local_gidx = offset + jnp.arange(shard_size, dtype=jnp.int32)
-    invalid = local_gidx >= tgt_count
-
-    # the shared exact-FMA distance/argmin block — the formulation IS the
-    # cross-path contract (see tpuslam.ops.nn / kernels.pallas_nn);
-    # chunked over source rows like the single-device oracle so the
-    # per-device live tile is (chunk, M/d), not (N, M/d)
-    il, dl = chunked_nn(src, tgt_shard, invalid)
+    offset = (jax.lax.axis_index(axis) * shard_size).astype(jnp.int32)
+    # valid rows are a global prefix, so each shard's are a local prefix
+    count_shard = jnp.clip(tgt_count - offset, 0, shard_size)
+    il, dl = nearest_neighbors(
+        src, tgt_shard, count_shard, use_pallas=use_pallas
+    )
     return lexmin_combine(dl, il, tgt_shard, offset, axis)
